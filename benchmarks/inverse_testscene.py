@@ -4,15 +4,16 @@ BASELINE.json configs[4]: "testscene.scn ... inverse-rendering gradient
 descent on BSDF + light params". This script is the committed end-to-end
 proof: perturb every material's diffuse albedo and every light's
 emission, then recover them from a rendered target of the TRUE scene by
-Adam descent through the differentiable forward (on TPU that is the
-megakernel + path-replay backprop route, replay.py).
+Adam descent through the differentiable forward (plain autodiff through
+the wavefront integrator).
 
 Artifacts written (commit them):
   goldens/inverse_testscene.json  — config, loss curve, true/init/final
                                     parameters, recovery errors
   goldens/inverse_testscene_{target,init,final}.png
 
-Run:  PYTHONPATH=/root/repo python benchmarks/inverse_testscene.py
+Run:  RAYTRACER_REF_DATA=<data dir> PYTHONPATH=. \
+          python benchmarks/inverse_testscene.py
 """
 
 from __future__ import annotations
@@ -22,30 +23,26 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
+from offline_raytracer_tpu.utils.compile_cache import enable_compile_cache
 
-import jax
-import jax.numpy as jnp
-import numpy as np
+enable_compile_cache()
 
-jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
 
-from offline_raytracer_tpu import diff
-from offline_raytracer_tpu.config import RenderConfig
-from offline_raytracer_tpu.render import render_block, tile_pixel_ids
-from offline_raytracer_tpu.scene.scn import load_scene
-from offline_raytracer_tpu.utils import hdr
+from offline_raytracer_tpu import diff  # noqa: E402
+from offline_raytracer_tpu.config import RenderConfig  # noqa: E402
+from offline_raytracer_tpu.models.scenes import testscene  # noqa: E402
+from offline_raytracer_tpu.render import render_block, tile_pixel_ids  # noqa: E402
+from offline_raytracer_tpu.utils import hdr  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REF_DATA = os.environ.get("RAYTRACER_REF_DATA", "/root/reference/data")
 
 
 def run(width=320, height=180, spp=4, target_spp=32, steps=80, lr=4e-2,
         out_dir=None):
     out_dir = out_dir or os.path.join(REPO, "goldens")
-    scene, _ = load_scene(os.path.join(REF_DATA, "testscene.scn"),
-                          width, height)
+    scene = testscene(width, height)
     cfg = RenderConfig(width=width, height=height, spp=spp, max_bounces=6,
                        enable_dof=False, ray_batch=width * height * spp)
     ids = jnp.asarray(tile_pixel_ids(width, height))
@@ -82,10 +79,8 @@ def run(width=320, height=180, spp=4, target_spp=32, steps=80, lr=4e-2,
     save_png(tgt_full.reshape(height, width, 3)[::-1],
              "inverse_testscene_target.png")
 
-    t0 = time.time()
     final_p, losses = diff.optimize(
         scene, cfg, target, ids, init_p, steps=steps, lr=lr, verbose=True)
-    opt_s = time.time() - t0
     save_png(render_with(final_p, 16), "inverse_testscene_final.png")
 
     def err(p):
@@ -104,14 +99,10 @@ def run(width=320, height=180, spp=4, target_spp=32, steps=80, lr=4e-2,
         "config": {"scene": "testscene.scn", "width": width,
                    "height": height, "spp_step": spp,
                    "spp_target": target_spp, "steps": steps, "lr": lr,
-                   "max_bounces": cfg.max_bounces,
-                   "backend": jax.default_backend(),
-                   "path": "megakernel fwd + path-replay bwd"
-                           if jax.default_backend() != "cpu" else "xla"},
+                   "max_bounces": cfg.max_bounces},
         "loss_first": losses[0], "loss_last": losses[-1],
         "loss_reduction_x": losses[0] / max(losses[-1], 1e-12),
         "loss_curve": losses[::2],
-        "optimize_seconds": round(opt_s, 1),
         "diffuse_mae_init": d0, "diffuse_mae_final": d1,
         "emit_rel_err_init": e0, "emit_rel_err_final": e1,
         "true_diffuse": np.asarray(true_p["diffuse"]).round(4).tolist(),
@@ -125,8 +116,8 @@ def run(width=320, height=180, spp=4, target_spp=32, steps=80, lr=4e-2,
     print(json.dumps({k: rec[k] for k in
                       ("loss_first", "loss_last", "loss_reduction_x",
                        "diffuse_mae_init", "diffuse_mae_final",
-                       "emit_rel_err_init", "emit_rel_err_final",
-                       "optimize_seconds")}, indent=1))
+                       "emit_rel_err_init", "emit_rel_err_final")},
+                     indent=1))
 
 
 if __name__ == "__main__":

@@ -6,8 +6,8 @@ from the integrator's own alive-mask statistics (render_block_stats) —
 path segments plus NEE shadow rays — not assumed from spp.
 
 Usage:
-    python benchmarks/mrays.py [--scenes bunny,testscene] [--spp 32]
-        [--size 256] [--backward] [--no-pallas]
+    python benchmarks/mrays.py [--scenes blob,shaped] [--spp 32]
+        [--size 256] [--backward]
 """
 
 from __future__ import annotations
@@ -90,22 +90,24 @@ def bench_backward(scene, cfg, repeats=3):
         g, loss = step(params)
         jax.block_until_ready(g)
         best = min(best, time.time() - t0)
-    # rays: fwd pass traced twice by value_and_grad-equivalent + bwd replay;
-    # report paths-based lower bound (camera rays only) to stay honest
+    # report a paths-based lower bound (camera rays only): the backward
+    # pass's own ray count is not measured here
     n_paths = block * cfg.spp
     return n_paths / best / 1e6, best
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scenes", default="analytic,letter,bunny,testscene")
+    ap.add_argument("--scenes", default="analytic,shaped,blob")
     ap.add_argument("--spp", type=int, default=32)
     ap.add_argument("--size", type=int, default=256)
     ap.add_argument("--backward", action="store_true")
-    ap.add_argument("--no-pallas", action="store_true")
     ap.add_argument("--repeats", type=int, default=3)
     args = ap.parse_args()
 
+    from offline_raytracer_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     import jax
 
     from offline_raytracer_tpu.config import RenderConfig
@@ -113,21 +115,17 @@ def main():
 
     for name in args.scenes.split(","):
         t0 = time.time()
-        if name == "testscene":
-            scene = presets.BY_NAME[name]()
-        else:
-            scene = presets.BY_NAME[name](args.size, args.size)
+        scene = presets.BY_NAME[name](args.size, args.size)
         print(f"{name}: scene built in {time.time()-t0:.1f}s", file=sys.stderr)
         cfg = RenderConfig(
             width=args.size, height=args.size, spp=args.spp,
-            max_bounces=8, enable_dof=False,
-            use_pallas=not args.no_pallas, ray_batch=1 << 16)
+            max_bounces=8, enable_dof=False, ray_batch=1 << 16)
 
         mrays, secs = bench_forward(scene, cfg, args.repeats)
         print(json.dumps({
             "metric": f"{name}_{args.size}_{args.spp}spp_forward",
             "value": round(mrays, 3), "unit": "Mrays/s",
-            "seconds": round(secs, 3), "backend": jax.default_backend()}),
+            "seconds": round(secs, 3), "device": jax.devices()[0].device_kind}),
             flush=True)
 
         if args.backward:
@@ -135,7 +133,7 @@ def main():
             print(json.dumps({
                 "metric": f"{name}_{args.size}_{args.spp}spp_fwd+bwd",
                 "value": round(mpaths, 3), "unit": "Mpaths/s",
-                "seconds": round(secs, 3), "backend": jax.default_backend()}),
+                "seconds": round(secs, 3), "device": jax.devices()[0].device_kind}),
                 flush=True)
 
 

@@ -15,17 +15,19 @@ Exact parity is NOT expected: we deliberately fix reference defects
 ray.cpp:330, refraction eta mixing ray.cpp:970) and use a different
 sampler, so thresholds are structural, not bitwise.
 
-Run:  PYTHONPATH=/root/repo python benchmarks/parity.py out/parity_testscene_320.hdr
+Run:  PYTHONPATH=. python benchmarks/parity.py out/parity_testscene_320.hdr
+(the showcase HDR is read from $RAYTRACER_SHOWCASE/1.hdr)
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 
 import numpy as np
 
-SHOWCASE = "/root/reference/showcase/1.hdr"
+SHOWCASE = os.path.join(os.environ.get("RAYTRACER_SHOWCASE", "showcase"), "1.hdr")
 
 
 def box_down(img: np.ndarray, h: int, w: int) -> np.ndarray:

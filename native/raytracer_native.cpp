@@ -2,7 +2,7 @@
 //
 // The host-side hot paths that the reference implements natively
 // (parser.cpp: PLY/OBJ loaders; ray.cpp:1469-2045 + macos_main.mm:416-545:
-// octree construction) re-implemented for the TPU framework's packed-LBVH
+// octree construction) re-implemented for the framework's packed-LBVH
 // layout (see offline_raytracer_tpu/ops/bvh.py for the layout contract):
 //
 //   - parse_ply / parse_obj: single-pass tokenizers with strtof/strtol —

@@ -1,6 +1,6 @@
-"""offline_raytracer_tpu — a TPU-native differentiable Monte-Carlo path tracer.
+"""offline_raytracer_tpu — a differentiable Monte-Carlo path tracer in JAX.
 
-A from-scratch JAX/Pallas re-design of the capability set of
+A from-scratch JAX re-design of the capability set of
 gyuhyun-lee/offline_raytracer (a CPU/NEON C++ offline ray tracer):
 
 - analytic primitives (sphere / axis-aligned box / cylinder) + triangle meshes
@@ -10,12 +10,13 @@ gyuhyun-lee/offline_raytracer (a CPU/NEON C++ offline ray tracer):
 - next-event estimation with MIS (the reference's NEE is disabled dead code;
   here it works), shaped area lights, depth of field, Radiance .hdr output
 - BVH acceleration (reference: centroid octree, ray.cpp:1469-2045; here an
-  LBVH built host-side into flat SoA arrays, traversed in a wavefront kernel)
+  LBVH built host-side into flat SoA arrays, walked by ray packets)
 
-Design is TPU-first, not a port: structure-of-arrays pytrees, counter-based
-RNG, ``lax.scan`` wavefront bounce loop with alive masks instead of
-per-ray control flow, ``shard_map`` over a device mesh instead of a thread
-work queue, and Pallas kernels for the traversal hot loop.
+Design for an accelerator, not a port: structure-of-arrays pytrees,
+counter-based RNG, a ``lax.scan`` wavefront bounce loop with alive masks
+instead of per-ray control flow, and ``shard_map`` over a device mesh
+instead of a thread work queue. Everything is plain jnp/lax compiled by
+XLA; the package name records where the design started.
 """
 
 __version__ = "0.1.0"

@@ -6,7 +6,7 @@ flag. Usage:
 
     python -m offline_raytracer_tpu.cli --scene data/testscene.scn \
         --width 1280 --height 720 --spp 256 --out out/render.hdr
-    python -m offline_raytracer_tpu.cli --preset bunny --spp 64
+    python -m offline_raytracer_tpu.cli --preset blob --spp 64
 """
 
 from __future__ import annotations
@@ -20,10 +20,11 @@ import time
 def build_parser():
     p = argparse.ArgumentParser(
         prog="offline_raytracer_tpu",
-        description="TPU-native differentiable path tracer")
+        description="differentiable Monte-Carlo path tracer")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--scene", help=".scn scene file")
-    src.add_argument("--preset", choices=["analytic", "letter", "bunny", "dwarf", "testscene"])
+    src.add_argument("--preset", choices=[
+        "analytic", "blob", "shaped", "letter", "bunny", "dwarf", "testscene"])
     p.add_argument("--width", type=int, default=None)
     p.add_argument("--height", type=int, default=None)
     p.add_argument("--spp", type=int, default=64)
@@ -33,18 +34,15 @@ def build_parser():
     p.add_argument("--no-nee", action="store_true", help="BSDF sampling only (reference mode)")
     p.add_argument("--no-dof", action="store_true")
     p.add_argument("--no-bvh", action="store_true")
-    p.add_argument("--no-pallas", action="store_true")
     p.add_argument("--reference-mode", action="store_true",
                    help="match reference estimator: no NEE, no pixel jitter")
     p.add_argument("--ray-batch", type=int, default=1 << 17)
     p.add_argument("--sharded", action="store_true", help="shard over all devices")
     p.add_argument("--multihost", action="store_true",
-                   help="join a multi-host cluster (jax.distributed.initialize"
-                        " with auto-detected coordinator) before building the"
-                        " mesh; implies --sharded")
+                   help="join a multi-process cluster (jax.distributed.initialize)"
+                        " before building the mesh; implies --sharded")
     p.add_argument("--coordinator", default=None,
-                   help="host:port of process 0 (with --multihost on manual"
-                        " clusters; auto-detected on TPU pods)")
+                   help="host:port of process 0 (with --multihost)")
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--out", default="out/render.hdr")
@@ -91,6 +89,9 @@ def main(argv=None):
     from offline_raytracer_tpu.config import RenderConfig
     from offline_raytracer_tpu.render import render_image
     from offline_raytracer_tpu.utils import hdr
+    from offline_raytracer_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     if args.multihost:
         # must run before any other jax call creates the single-host backend
@@ -105,16 +106,9 @@ def main(argv=None):
         scene, (w, h) = load_scene(args.scene, args.width, args.height)
     else:
         from offline_raytracer_tpu.models import scenes as presets
-        kw = {}
-        if args.width:
-            kw["width"] = args.width
-        if args.height:
-            kw["height"] = args.height
-        scene = presets.BY_NAME[args.preset](**kw)
-        w = args.width or scene.camera.p.shape  # width/height live in cfg below
-        w, h = args.width or 512, args.height or 512
-        if args.preset == "analytic":
-            w, h = args.width or 256, args.height or 256
+        size = 256 if args.preset in ("analytic", "shaped") else 512
+        w, h = args.width or size, args.height or size
+        scene = presets.BY_NAME[args.preset](width=w, height=h)
     print(f"scene loaded in {time.time()-t0:.1f}s "
           f"({int(scene.triangles.mat.shape[0])} tris, "
           f"{int(scene.spheres.radius.shape[0])} spheres, "
@@ -132,7 +126,6 @@ def main(argv=None):
         reference_rr_quirk=args.reference_mode,
         enable_dof=not args.no_dof,
         use_bvh=not args.no_bvh,
-        use_pallas=not args.no_pallas,
         ray_batch=args.ray_batch,
     )
 

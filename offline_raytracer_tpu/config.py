@@ -52,75 +52,18 @@ class RenderConfig:
 
     # acceleration
     use_bvh: bool = True
-    bvh_leaf_size: int = 128  # packed-BVH leaves = lane width
+    bvh_leaf_size: int = 128  # packed-BVH leaf size (fixed, ops/bvh.py)
     max_stack_depth: int = 64
-    sort_rays: bool = True    # coherence-sort bounce/shadow rays so 1024-ray
+    sort_rays: bool = True    # coherence-sort bounce/shadow rays so ray
     #                           packets stay spatially tight (traverse.py)
 
     # execution
     ray_batch: int = 1 << 17       # rays per device step (pixels*spp chunked)
-    mega_trip_leaves: int = 4      # megakernel walk: leaves visited per
-    #                                while-loop trip (amortizes the loop
-    #                                handshake; tail visits are wasted work)
-    mega_sort_after: int = 3       # megakernel host loop: coherence-
-    #                                compact the wavefront after bounces
-    #                                0..N-1 (later sorts cost more than the
-    #                                sweep work they save)
-    replay_tiers: tuple = ()       # gradient-replay compaction schedule:
-    #                                ((bounce, divisor), ...) — at each
-    #                                listed bounce the replay gathers the
-    #                                longest-lived R//divisor rays and
-    #                                runs the remaining bounces on that
-    #                                subset. EXACT while the survivor
-    #                                count fits the capacity (records
-    #                                prove it per render; tests assert
-    #                                equality); rays beyond capacity lose
-    #                                their tail bounces. () = full-width
-    #                                exact replay. See integrator.py.
-    use_pallas: bool = True        # pallas megakernel on TPU (auto-
-    #                                fallback: CPU backend or BVH > VMEM)
-    traversal: str = "auto"        # "auto" | "mega" | "cull" | "packet" |
-    #                                "jnp". auto = the fused megakernel
-    #                                (ops/mega.py, forward-only) when the
-    #                                scene qualifies, else cull-and-sweep
-    #                                (traverse_cull.py), else the packet
-    #                                tree walk (traverse_pallas.py).
-    #                                Gradient renders need an XLA mode
-    #                                (cull/packet/jnp) set explicitly.
-    grad_mode: str = "kernel-value"
-    #                                How the megakernel route exposes
-    #                                gradients (replay.py):
-    #                                "kernel-value" — custom_vjp: primal =
-    #                                the kernel's own radiance, backward =
-    #                                path-replay VJP. Exact primal, but the
-    #                                custom_vjp bwd computes cotangents for
-    #                                EVERY scene leaf and XLA cannot DCE
-    #                                the unused ones (+~35% per grad step,
-    #                                measured r5 benchmarks/profile_grad).
-    #                                "replay-value" — forward value = the
-    #                                XLA replay of the kernel's records;
-    #                                plain autodiff, unused cotangents DCE.
-    #                                Same estimator on the same draws
-    #                                (tests/test_replay.py pins kernel ==
-    #                                replay radiance); use for gradient
-    #                                descent loops.
     accum_dtype: str = "float32"
 
     # knobs that change only scheduling/perf, never the estimate — excluded
     # from checkpoint resume-compat comparison (utils/checkpoint._meta_of)
-    PERF_ONLY = ("ray_batch", "use_pallas", "traversal", "sort_rays",
-                 "max_stack_depth", "mega_trip_leaves", "mega_sort_after",
-                 "replay_tiers", "grad_mode")
-
-    def __post_init__(self):
-        if self.traversal not in ("auto", "mega", "cull", "packet", "jnp"):
-            raise ValueError(
-                f"traversal must be one of auto|mega|cull|packet|jnp, "
-                f"got {self.traversal!r}")
-        if self.grad_mode not in ("kernel-value", "replay-value"):
-            raise ValueError(
-                f"grad_mode must be kernel-value|replay-value, "
-                f"got {self.grad_mode!r}")
+    PERF_ONLY = ("ray_batch", "sort_rays", "max_stack_depth")
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)

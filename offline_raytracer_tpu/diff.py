@@ -59,7 +59,7 @@ def optimize(
     (stratified over the sample index) so gradient noise is independent
     across steps. Returns (params, losses).
 
-    With ``checkpoint_dir``, (params, optimizer state) are orbax-saved
+    With ``checkpoint_dir``, (params, optimizer state) are saved
     every ``checkpoint_every`` steps and the run resumes from the latest
     step on restart (utils/checkpoint.py — the elastic-recovery story the
     single-shot reference never needed, SURVEY.md §5)."""
@@ -73,16 +73,14 @@ def optimize(
         optax.zero_nans(), optax.clip_by_global_norm(10.0), optax.adam(lr))
     state = opt.init(params)
 
-    start = 0
-    ckptr = None
-    if checkpoint_dir:
-        from offline_raytracer_tpu.utils import checkpoint as ckpt
+    from offline_raytracer_tpu.utils import checkpoint as ckpt
 
-        ckptr = ckpt.opt_checkpointer()
+    start = 0
+    if checkpoint_dir:
         latest = ckpt.latest_opt_step(checkpoint_dir)
         if latest is not None:
             params, state = ckpt.load_opt_state(
-                ckptr, checkpoint_dir, latest, params, state)
+                checkpoint_dir, latest, params, state)
             start = latest
             if verbose:
                 print(f"resumed inverse rendering at step {start}")
@@ -97,10 +95,8 @@ def optimize(
     for k in range(start, steps):
         params, state, loss = step(params, state, k)
         losses.append(float(loss))
-        if ckptr is not None and ((k + 1) % checkpoint_every == 0 or k == steps - 1):
-            from offline_raytracer_tpu.utils import checkpoint as ckpt
-
-            ckpt.save_opt_state(ckptr, checkpoint_dir, k + 1, params, state)
+        if checkpoint_dir and ((k + 1) % checkpoint_every == 0 or k == steps - 1):
+            ckpt.save_opt_state(checkpoint_dir, k + 1, params, state)
         if verbose and (k % 10 == 0 or k == steps - 1):
             print(f"step {k:4d}  loss {losses[-1]:.6f}")
     return params, losses

@@ -1,11 +1,11 @@
 """Wavefront path-tracing integrator.
 
-TPU-native redesign of the reference's per-pixel recursive loop
+A wavefront redesign of the reference's per-pixel recursive loop
 (tiled_raytrace_bvh, ray.cpp:1178-1466): instead of one ray walking a
 data-dependent while loop, a whole SoA wavefront of rays advances through a
 ``lax.scan`` over a fixed bounce budget with an alive mask. Russian
 roulette (ref :1280, p=0.8) terminates via the mask with 1/p throughput
-compensation; dead lanes ride along masked (the VPU analog of the
+compensation; dead lanes ride along masked (the vector analog of the
 reference's dormant 4-wide NEON lane model, SURVEY.md §2 component 5).
 
 Differentiability: discrete winners (hit ids) and sampled directions are
@@ -18,7 +18,6 @@ from __future__ import annotations
 
 from typing import Callable
 
-import flax.struct
 import jax
 import jax.numpy as jnp
 
@@ -27,7 +26,7 @@ from offline_raytracer_tpu.ops import bsdf as bsdf_ops
 from offline_raytracer_tpu.ops import lights as light_ops
 from offline_raytracer_tpu.ops.intersect import Hit, closest_hit_bruteforce
 from offline_raytracer_tpu.scene.types import Scene
-from offline_raytracer_tpu.utils import rng
+from offline_raytracer_tpu.utils import pytree, rng
 from offline_raytracer_tpu.utils.math import normalize
 
 TraceFn = Callable[[jnp.ndarray, jnp.ndarray], Hit]
@@ -40,7 +39,7 @@ sg = jax.lax.stop_gradient
 PARK_ORIGIN = 1e8
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class PathState:
     origin: jnp.ndarray      # (R, 3)
     direction: jnp.ndarray   # (R, 3)
@@ -67,7 +66,6 @@ def trace_paths(
     ps_keys: jnp.ndarray,
     collect_stats: bool = False,
     occl_fn=None,
-    replay=None,
 ) -> jnp.ndarray:
     """Trace R paths to completion. Returns radiance (R, 3).
 
@@ -76,16 +74,6 @@ def trace_paths(
     lanes that produced a continuation segment at each bounce. This is the
     structured replacement for the reference's per-tile ``test_shape_count``
     printf (macos_main.mm:161); see utils/profiling.RenderMeter.
-
-    ``replay``: optional ``(hit_ids (B, R) int32, nee_vis (B, R) f32)``
-    records from the megakernel (ops/mega.py collect_records). When given,
-    no traversal happens at all: the per-bounce closest hit is recomputed
-    attached from the recorded winner (ops/intersect.hit_from_ids) and the
-    NEE shadow query is replaced by the recorded visibility bit. Because
-    the RNG is counter-based, every sampled direction / RR decision / light
-    point regenerates identically, so this replays the SAME paths the
-    kernel traced — differentiably (path-replay backprop; trace_fn and
-    occl_fn may be None).
     """
     R = origin.shape[0]
     state = PathState(
@@ -103,81 +91,18 @@ def trace_paths(
     do_nee = cfg.enable_nee and n_lights > 0
     do_mis = do_nee and cfg.enable_mis
 
-    # Replay mode: every id-dependent GATHER is hoisted out of the scan —
-    # on TPU a gather inside lax.scan lowers ~25x slower than at top
-    # level (r4 profiling: the in-scan gathers were the entire replay
-    # cost). The recorded winner ids cover all bounces up front, so one
-    # batched gather per table here feeds the scan via xs.
-    if replay is not None:
-        from offline_raytracer_tpu.ops.intersect import (
-            hit_from_params, prefetch_hit_params)
-
-        ids_all, vis_all = replay
-        B = cfg.max_bounces
-
-        def build_pre(ids_seg, vis_seg, keys_seg, b_lo):
-            """Prefetch tables for bounces [b_lo, b_lo + nb) over the
-            CURRENT (possibly tier-compacted) ray subset. Built per
-            segment so the scene-table gathers — and, decisively, their
-            scatter-add VJPs, which carry the parameter gradients — are
-            sized to the compacted width instead of full R x B."""
-            nb, S = ids_seg.shape
-            hp = prefetch_hit_params(scene, ids_seg)        # (nb, S, ...)
-            u8 = jnp.stack(
-                [rng.bounce_uniforms(keys_seg, b_lo + i, 8)
-                 for i in range(nb)])
-            mat = hp["mat"]
-            p = {
-                "hp": hp,
-                "u8": u8,
-                "matp": bsdf_ops.gather_mat_params(
-                    mats, mat, cfg.default_roughness,
-                    cfg.roughness_from_material),
-                "emit": mats.emit[mat],
-                "is_light": mats.is_light[mat],
-                "light_idx": scene.mat_to_light[mat],
-                "vis": vis_seg,
-            }
-            if do_mis:
-                p["pdf_area_hit"] = light_ops.light_pdf_area(
-                    scene.lights, p["light_idx"])
-            if do_nee:
-                u4 = u8[..., 0:4].reshape(nb * S, 4)
-                ls_flat = light_ops.sample_lights(
-                    u4, scene.lights, mats.emit)
-                p["ls"] = jax.tree.map(
-                    lambda x: x.reshape((nb, S) + x.shape[1:]), ls_flat)
-            return p
-
-    def bounce(state: PathState, xs):
-        if replay is None:
-            bounce_idx = xs
-            # all of this bounce's randomness in one threefry sweep:
-            # [0] light pick  [1:4] light point  [4] RR  [5:8] bsdf sample
-            u8 = rng.bounce_uniforms(state.keys, bounce_idx, 8)
-            hit = trace_fn(state.origin, state.direction)
-            emit = mats.emit[hit.mat]
-            hit_is_light = mats.is_light[hit.mat]
-        else:
-            bounce_idx, pre_b = xs
-            u8 = pre_b["u8"]
-            hit = hit_from_params(
-                scene, pre_b["hp"], state.origin, state.direction,
-                cfg.t_min)
-            emit = pre_b["emit"]
-            hit_is_light = pre_b["is_light"]
-
-        hit_light = hit_is_light & hit.valid
+    def bounce(state: PathState, bounce_idx):
+        # all of this bounce's randomness in one threefry sweep:
+        # [0] light pick  [1:4] light point  [4] RR  [5:8] bsdf sample
+        u8 = rng.bounce_uniforms(state.keys, bounce_idx, 8)
+        hit = trace_fn(state.origin, state.direction)
+        emit = mats.emit[hit.mat]
+        hit_light = mats.is_light[hit.mat] & hit.valid
 
         # ------ emissive accumulation (implicit light connection, ref :1355-1371)
-        R_cur = state.alive.shape[0]   # replay tiers shrink the batch
         if do_mis:
-            if replay is None:
-                light_idx = scene.mat_to_light[hit.mat]
-                pdf_area = light_ops.light_pdf_area(scene.lights, light_idx)
-            else:
-                light_idx = pre_b["light_idx"]
-                pdf_area = pre_b["pdf_area_hit"]
+            light_idx = scene.mat_to_light[hit.mat]
+            pdf_area = light_ops.light_pdf_area(scene.lights, light_idx)
             cos_l = jnp.sum(hit.normal * (-state.direction), -1)
             p_nee = light_ops.solid_angle_pdf(pdf_area, hit.t, cos_l)
             mis_applies = (light_idx >= 0) & (state.prev_pdf >= 0.0)
@@ -195,13 +120,12 @@ def trace_paths(
             # FRONT face (cos_l gate below), so back-facing emissive hits
             # keep weight 1 too — zeroing them would lose energy, not
             # remove a double count (ADVICE r2).
-            light_idx = (scene.mat_to_light[hit.mat] if replay is None
-                         else pre_b["light_idx"])
+            light_idx = scene.mat_to_light[hit.mat]
             front = jnp.sum(hit.normal * (-state.direction), -1) > 1e-6
             mis_w = jnp.where(
                 (light_idx >= 0) & (state.prev_pdf >= 0.0) & front, 0.0, 1.0)
         else:
-            mis_w = jnp.ones((R_cur,))
+            mis_w = jnp.ones((R,))
         if cfg.reference_rr_quirk and cfg.russian_roulette < 1.0:
             # reproduce the reference's uncompensated final RR gate on
             # light-terminated paths (config.py reference_rr_quirk) —
@@ -228,24 +152,16 @@ def trace_paths(
         x = jnp.where(alive[..., None], x, state.origin)  # keep dead lanes finite
         wo = -state.direction
         n = hit.normal
-        if replay is None:
-            safe_mat = jnp.where(alive, hit.mat, 0)
-            matp = bsdf_ops.gather_mat_params(
-                mats, safe_mat, cfg.default_roughness,
-                cfg.roughness_from_material)
-        else:
-            # prefetched by hit.mat (miss lanes carry mat 0 already; dead
-            # lanes' params are only NaN-safety, everything downstream is
-            # alive-masked)
-            matp = pre_b["matp"]
+        safe_mat = jnp.where(alive, hit.mat, 0)
+        matp = bsdf_ops.gather_mat_params(
+            mats, safe_mat, cfg.default_roughness,
+            cfg.roughness_from_material)
         seg_len = jnp.where(hit.valid, hit.t, 0.0)
 
         # ------ next-event estimation (working version of ref's dead
         # explicit-connection block, ray.cpp:1285-1327)
         if do_nee:
-            ls = (light_ops.sample_lights(u8[:, 0:4], scene.lights,
-                                          mats.emit)
-                  if replay is None else pre_b["ls"])
+            ls = light_ops.sample_lights(u8[:, 0:4], scene.lights, mats.emit)
             to_l = ls.p - x
             dist_l = jnp.linalg.norm(to_l, axis=-1)
             wi_l = to_l / jnp.maximum(dist_l, 1e-9)[..., None]
@@ -254,9 +170,7 @@ def trace_paths(
             # shadow query: any-hit with the light distance as the t bound;
             # dead lanes launch with t_far=0 and cost nothing
             worth = alive & (cos_l > 1e-6)
-            if replay is not None:
-                visible = pre_b["vis"] > 0.5
-            elif occl_fn is not None:
+            if occl_fn is not None:
                 x_sh = jnp.where(worth[..., None], x, PARK_ORIGIN)
                 tf = jnp.where(worth, dist_l * (1.0 - 1e-3), 0.0)
                 visible = ~occl_fn(x_sh, wi_l, tf)
@@ -268,7 +182,7 @@ def trace_paths(
                 p_b = bsdf_ops.pdf_bsdf(n, wi_l, wo, matp)
                 w_l = light_ops.mis_balance(p_nee_solid, p_b)
             else:
-                w_l = jnp.ones((R_cur,))
+                w_l = jnp.ones((R,))
             good = alive & visible & (cos_l > 1e-6) & (p_nee_solid > 1e-9)
             # estimator split: the geometric factor cos/dist^2 AND the
             # area pdf stay ATTACHED — they carry the real derivatives
@@ -328,73 +242,8 @@ def trace_paths(
         )
         return new_state, jnp.sum(alive.astype(jnp.float32))
 
-    if replay is None:
-        state, alive_per_bounce = jax.lax.scan(
-            bounce, state, jnp.arange(cfg.max_bounces))
-    else:
-        # UNROLLED: on TPU both gathers and large-xs slicing degrade
-        # badly inside lax.scan (r4 profiling); the bounce count is
-        # static and small, so the replay pays compile size for a
-        # top-level-fast body.
-        #
-        # TIERED COMPACTION (cfg.replay_tiers): the wavefront is a few
-        # percent alive after the first bounces, yet a full-width replay
-        # pushes all R rays through every bounce body (and its VJP). At
-        # each (bounce, divisor) tier the replay banks the radiance
-        # accumulated so far, sorts the CURRENT slots so rays that can
-        # still matter come first (a ray can contribute at bounces >= b
-        # only if it HIT at bounce b-1 — the records are monotone: hit
-        # ids, then -1 forever), and keeps the first R//divisor slots.
-        # Static shapes throughout; EXACT whenever the survivor count
-        # fits the capacity (guaranteed-checkable from the records:
-        # tests/test_replay.py asserts compact == full), rays beyond
-        # capacity lose their tail bounces — pick divisors with margin.
-        tiers = dict(cfg.replay_tiers)
-        # segment plan: a new segment starts at every tier bounce whose
-        # capacity is below the current width
-        seg_starts = [0] + sorted(
-            b for b, d in tiers.items()
-            if 0 < b < cfg.max_bounces and max(R // int(d), 1) < R)
-        segs = [(b0, b1) for b0, b1 in
-                zip(seg_starts, seg_starts[1:] + [cfg.max_bounces])]
-        alive_counts = []
-        rad_full = jnp.zeros((R, 3))
-        abs_idx = jnp.arange(R, dtype=jnp.int32)
-        ids_sg = sg(replay[0])
-        vis_sg = sg(replay[1])
-        tiered = False
-        for b0, b1 in segs:
-            if b0 > 0:
-                S = max(R // int(tiers[b0]), 1)
-                if S < state.alive.shape[0]:
-                    mask = ids_sg[b0 - 1][abs_idx] >= 0
-                    sel = jnp.argsort(~mask, stable=True)[:S]
-                    rad_full = rad_full.at[abs_idx].add(state.radiance)
-                    state = PathState(
-                        origin=state.origin[sel],
-                        direction=state.direction[sel],
-                        throughput=state.throughput[sel],
-                        radiance=jnp.zeros((S, 3)),
-                        alive=state.alive[sel] & mask[sel],
-                        prev_pdf=state.prev_pdf[sel],
-                        keys=state.keys[sel])
-                    abs_idx = abs_idx[sel]
-                    tiered = True
-            if tiered:
-                ids_seg = ids_sg[b0:b1, abs_idx]
-                vis_seg = vis_sg[b0:b1, abs_idx]
-            else:   # identity subset: plain slices, no gather
-                ids_seg = ids_sg[b0:b1]
-                vis_seg = vis_sg[b0:b1]
-            pre_seg = build_pre(ids_seg, vis_seg, state.keys, b0)
-            for b in range(b0, b1):
-                pre_b = jax.tree.map(lambda x, b=b: x[b - b0], pre_seg)
-                state, a = bounce(state, (jnp.int32(b), pre_b))
-                alive_counts.append(a)
-        alive_per_bounce = jnp.stack(alive_counts)
-        if tiered:
-            rad_full = rad_full.at[abs_idx].add(state.radiance)
-            state = state.replace(radiance=rad_full)
+    state, alive_per_bounce = jax.lax.scan(
+        bounce, state, jnp.arange(cfg.max_bounces))
     if collect_stats:
         return state.radiance, alive_per_bounce
     return state.radiance

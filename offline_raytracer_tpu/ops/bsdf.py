@@ -23,15 +23,15 @@ Sidedness is resolved through signed dots exactly like get_beer_n
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 
+from offline_raytracer_tpu.utils import pytree
 from offline_raytracer_tpu.utils.math import frame_to_world, normalize, vdot
 
 PI = jnp.pi
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class MatParams:
     """Per-ray gathered material parameters (SoA)."""
 
@@ -207,7 +207,7 @@ def pdf_bsdf(n, wi, wo, mat: MatParams):
     return pd_c * pd + ps_c * ps + pt_c * pt
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class BsdfSample:
     wi: jnp.ndarray               # (R, 3)
     is_transmission: jnp.ndarray  # (R,) bool — ray passes through the surface

@@ -1,14 +1,14 @@
-"""Host-side BVH construction into TPU-friendly flat arrays.
+"""Host-side BVH construction into flat arrays.
 
-TPU-native replacement for the reference's pointer-chasing centroid octree
+Replaces the reference's pointer-chasing centroid octree
 (push_shape_inside_node / validate_nodes_and_reallocate_shapes,
-ray.cpp:1469-2045, built at macos_main.mm:416-545): a Morton-ordered LBVH
-whose *layout* is designed around the two memory-access patterns a TPU
-kernel can actually do fast — dynamic-ROW loads and static-LANE extracts:
+ray.cpp:1469-2045, built at macos_main.mm:416-545) with a Morton-ordered
+LBVH whose layout serves the packet walk of ops/traverse.py: dynamic-ROW
+loads and static-LANE extracts, no per-ray gathers:
 
 - **128-triangle leaves.** Leaves take 128 consecutive Morton-sorted
-  triangles (the vector lane width), so one leaf = one row of each
-  coefficient plane and a leaf test is a dense (rays x 128) VPU sweep.
+  triangles, so one leaf = one row of each coefficient plane and a leaf
+  test is a dense (rays x 128) broadcast sweep.
 - **Affine-barycentric triangle encoding.** Each triangle is stored as
   12 coefficients (s1, c1, s2, c2, n, cw) such that for a ray (o, d):
       t = -(n·o + cw) / (n·d),  u = (s1·o + c1) + t (s1·d),
@@ -31,9 +31,10 @@ flat float32/int32 arrays riding in the Scene pytree.
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 import numpy as np
+
+from offline_raytracer_tpu.utils import pytree
 
 LEAF = 128  # triangles per leaf == vector lane width
 
@@ -41,19 +42,15 @@ LEAF = 128  # triangles per leaf == vector lane width
 S1X, S1Y, S1Z, C1, S2X, S2Y, S2Z, C2, NX, NY, NZ, CW = range(12)
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class TriBVH:
     child_rows: jnp.ndarray  # (max(P-1,1), 128): lanes 0-5 = child1 AABB
     #                          (minx,miny,minz,maxx,maxy,maxz), 6-11 = child2
     planes: jnp.ndarray      # (12, M_pad, 128) triangle coefficient planes
     tri_index: jnp.ndarray   # (M_pad*128,) int32 original tri id, -1 = pad
     mat: jnp.ndarray         # (M_pad*128,) int32 material per slot
-    leaf_bounds: jnp.ndarray = None  # (6, L_lane) leaf AABBs as component
-    #                          rows (minx,miny,minz,maxx,maxy,maxz), lane-
-    #                          padded to 128; pads are inverted boxes. Feeds
-    #                          the dense leaf cull (ops/traverse_cull.py).
-    n_leaves: int = flax.struct.field(pytree_node=False, default=1)   # P, pow2
-    m_occ: int = flax.struct.field(pytree_node=False, default=1)      # occupied
+    n_leaves: int = pytree.field(static=True, default=1)   # P, pow2
+    m_occ: int = pytree.field(static=True, default=1)      # occupied
 
     @property
     def first_leaf(self) -> int:
@@ -100,29 +97,6 @@ def triangle_coefficients(v0, v1, v2):
     return out.astype(np.float32)
 
 
-def leaf_bounds_rows(tri_index, m_occ: int, v0, v1, v2) -> np.ndarray:
-    """(6, L_lane) leaf AABB component rows from leaf-ordered slot ids.
-
-    Rows are (minx, miny, minz, maxx, maxy, maxz) over the real triangles
-    of each 128-slot leaf; the leaf axis is lane-padded to a multiple of
-    128 with inverted boxes (min=+inf, max=-inf) that no cull can accept.
-    """
-    slots = np.asarray(tri_index[: m_occ * LEAF]).reshape(m_occ, LEAF)
-    valid = (slots >= 0)[..., None]
-    idx = np.maximum(slots, 0)
-    tmin = np.minimum(np.minimum(v0[idx], v1[idx]), v2[idx])
-    tmax = np.maximum(np.maximum(v0[idx], v1[idx]), v2[idx])
-    lmin = np.where(valid, tmin, np.float32(np.inf)).min(1)    # (L, 3)
-    lmax = np.where(valid, tmax, np.float32(-np.inf)).max(1)
-    l_lane = -(-m_occ // LEAF) * LEAF
-    out = np.empty((6, l_lane), np.float32)
-    out[0:3] = np.float32(np.inf)
-    out[3:6] = np.float32(-np.inf)
-    out[0:3, :m_occ] = lmin.T
-    out[3:6, :m_occ] = lmax.T
-    return out
-
-
 def build_tri_bvh(v0, v1, v2, mat, leaf_size: int = LEAF) -> TriBVH:
     """Build the packed LBVH. Inputs are (N,3)/(N,) numpy or jax arrays.
 
@@ -145,8 +119,6 @@ def build_tri_bvh(v0, v1, v2, mat, leaf_size: int = LEAF) -> TriBVH:
         return TriBVH(
             child_rows=jnp.asarray(child_rows), planes=jnp.asarray(planes),
             tri_index=jnp.asarray(tri_index), mat=jnp.asarray(mat_out),
-            leaf_bounds=jnp.asarray(
-                leaf_bounds_rows(tri_index, int(m_occ), v0, v1, v2)),
             n_leaves=int(p), m_occ=int(m_occ))
 
     centroids = (v0 + v1 + v2) / 3.0
@@ -218,7 +190,5 @@ def build_tri_bvh(v0, v1, v2, mat, leaf_size: int = LEAF) -> TriBVH:
         tri_index=jnp.asarray(tri_index_full),
         mat=jnp.asarray(np.concatenate(
             [pmat, np.zeros((m_pad - m_occ) * LEAF, np.int32)])),
-        leaf_bounds=jnp.asarray(
-            leaf_bounds_rows(tri_index_full, m_occ, v0, v1, v2)),
         n_leaves=int(p), m_occ=int(m_occ),
     )

@@ -1,6 +1,6 @@
 """Batched ray-primitive intersection kernels.
 
-TPU-native re-design of the reference's scalar kernels
+A batched re-design of the reference's scalar kernels
 (ray_intersect_with_{triangle,sphere,aab,cylinder}, ray.cpp:63-352):
 every function is branch-free (jnp.where masks instead of early-outs) and
 broadcasts over an arbitrary leading ray axis, so the same code runs as an
@@ -17,15 +17,16 @@ Conventions:
 
 from __future__ import annotations
 
-import flax.struct
+import jax
 import jax.numpy as jnp
 
 from offline_raytracer_tpu.scene.types import Boxes, Cylinders, Scene, Spheres, Triangles
+from offline_raytracer_tpu.utils import pytree
 
 INF = jnp.inf
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Hit:
     """Per-ray hit record (SoA). The ray-state analog of RaycastBVHResult
     (ray.cpp:613-622) minus the stats counter."""
@@ -106,8 +107,7 @@ def box_hit_one(bmin, bmax, ro, rd, t_min):
     axis_entry = jnp.argmax(tn, -1)
     axis_exit = jnp.argmin(tf, -1)
     axis = jnp.where(inner, axis_exit, axis_entry)
-    # one-hot via compares, not eye[axis]: a gather — even from a 3-row
-    # table — lowers ~25x slower inside lax.scan on TPU (r4 finding)
+    # one-hot via compares: no gather from an identity table
     n_axis = jnp.stack(
         [axis == 0, axis == 1, axis == 2], -1).astype(ro.dtype)  # (R, 3)
     # outward normal: against ray on entry, along ray on exit; then flip to
@@ -124,6 +124,11 @@ def box_hit_one(bmin, bmax, ro, rd, t_min):
 # local frame where the axis is +Z (precomputed rot, world->local). The
 # reference gives caps the bogus normal (0,1,0) (ray.cpp:330) — fixed here:
 # caps get (0,0,±1), sides the radial normal.
+#
+# The 3x3 frame changes are elementwise products + sums, not einsums: a
+# contraction lowered as a dot may run in TF32 on tensor-core GPUs, which
+# would perturb t and the normal by ~1e-3 relative. This keeps full f32 on
+# every backend.
 # ---------------------------------------------------------------------------
 
 
@@ -131,8 +136,8 @@ def cylinder_ts(cyl: Cylinders, ro, rd, t_min):
     """All-pairs cylinder hit distances. -> (R, N)."""
     # local-frame ray per (ray, cyl): o = R (ro - base), d = R rd
     rel = ro[:, None, :] - cyl.base[None]                     # (R, N, 3)
-    o = jnp.einsum("nij,rnj->rni", cyl.rot, rel)
-    d = jnp.einsum("nij,rj->rni", cyl.rot, rd)
+    o = jnp.sum(cyl.rot[None] * rel[:, :, None, :], -1)       # (R, N, 3)
+    d = jnp.sum(cyl.rot[None] * rd[:, None, None, :], -1)
     height = jnp.linalg.norm(cyl.axis, axis=-1)[None]         # (1, N)
 
     t_bot = -o[..., 2] / d[..., 2]
@@ -158,8 +163,8 @@ def cylinder_ts(cyl: Cylinders, ro, rd, t_min):
 
 def cylinder_hit_one(base, axis, radius, rot, ro, rd, t_min):
     """Differentiable single-cylinder hit. rot: (R,3,3) world->local."""
-    o = jnp.einsum("rij,rj->ri", rot, ro - base)
-    d = jnp.einsum("rij,rj->ri", rot, rd)
+    o = jnp.sum(rot * (ro - base)[..., None, :], -1)
+    d = jnp.sum(rot * rd[..., None, :], -1)
     height = jnp.linalg.norm(axis, axis=-1)
 
     dz = jnp.where(jnp.abs(d[..., 2]) > 1e-12, d[..., 2], 1e-12)
@@ -192,7 +197,7 @@ def cylinder_hit_one(base, axis, radius, rot, ro, rd, t_min):
     n_cap = jnp.stack([jnp.zeros_like(t), jnp.zeros_like(t), n_cap_z], -1)
     n_local = jnp.where(cap_win[..., None], n_cap, n_side)
     # back to world: rot is orthonormal, inverse = transpose (ray.cpp:341)
-    normal = jnp.einsum("rji,rj->ri", rot, n_local)
+    normal = jnp.sum(rot * n_local[..., :, None], -2)
     return t, normal, inner
 
 
@@ -235,7 +240,7 @@ def triangle_hit_one(v0, v1, v2, ro, rd, t_min):
 # ---------------------------------------------------------------------------
 # Closest hit over the whole scene (brute force, no BVH)
 #
-# This is the TPU analog of the reference's pre-BVH dense loop (dead code
+# This is the batched analog of the reference's pre-BVH dense loop (dead code
 # ray.cpp:354-488): a masked min-reduction over every primitive, which for
 # the analytic prim counts in testscene.scn (~31) beats tree traversal on a
 # vector machine. Triangle sets use the BVH path (ops/traverse.py) instead.
@@ -261,143 +266,21 @@ def closest_hit_bruteforce(scene: Scene, ro, rd, t_min, include_triangles: bool 
         best_type = jnp.where(better, type_id, best_type)
         best_idx = jnp.where(better, i_prim, best_idx)
 
+    # The search is detached, like the BVH walk (ops/traverse.py): only its
+    # integer winners are used, so autodiff keeps no (rays x prims)
+    # residuals; gradients flow through refine_hit's recompute.
+    sc, ro_s, rd_s = jax.lax.stop_gradient((scene, ro, rd))
     # Python-level branches on static prim counts — resolved at trace time.
-    if scene.spheres.radius.shape[0]:
-        consider(sphere_ts(scene.spheres, ro, rd, t_min), SPHERE)
-    if scene.boxes.mat.shape[0]:
-        consider(box_ts(scene.boxes, ro, rd, t_min), BOX)
-    if scene.cylinders.radius.shape[0]:
-        consider(cylinder_ts(scene.cylinders, ro, rd, t_min), CYLINDER)
-    if include_triangles and scene.triangles.mat.shape[0]:
-        consider(triangle_ts(scene.triangles, ro, rd, t_min), TRIANGLE)
+    if sc.spheres.radius.shape[0]:
+        consider(sphere_ts(sc.spheres, ro_s, rd_s, t_min), SPHERE)
+    if sc.boxes.mat.shape[0]:
+        consider(box_ts(sc.boxes, ro_s, rd_s, t_min), BOX)
+    if sc.cylinders.radius.shape[0]:
+        consider(cylinder_ts(sc.cylinders, ro_s, rd_s, t_min), CYLINDER)
+    if include_triangles and sc.triangles.mat.shape[0]:
+        consider(triangle_ts(sc.triangles, ro_s, rd_s, t_min), TRIANGLE)
 
     return refine_hit(scene, ro, rd, t_min, best_type, best_idx, best_t < INF)
-
-
-def hit_from_ids(scene: Scene, ro, rd, ids, t_min) -> Hit:
-    """Differentiable hit record from megakernel hit ids (replay path).
-
-    ``ids`` (R,) int32 uses the MegaMeta encoding (ops/mega.py): -1 miss,
-    [0, ns) sphere, [ns, ns+nb) box, [.., +nc) cylinder, then packed-BVH
-    triangle SLOTS (leaf*128 + lane) which map to original triangle rows
-    through ``scene.tri_bvh.tri_index``. No search happens here — the
-    winner is known, only its (t, normal, mat) are recomputed attached so
-    d(image)/d(geometry) flows (the detached-search / attached-geometry
-    split of refine_hit).
-    """
-    ns = scene.spheres.radius.shape[0]
-    nb = scene.boxes.mat.shape[0]
-    nc = scene.cylinders.radius.shape[0]
-    valid = ids >= 0
-    i = jnp.maximum(ids, 0)
-    prim_type = jnp.where(
-        i < ns, SPHERE,
-        jnp.where(i < ns + nb, BOX,
-                  jnp.where(i < ns + nb + nc, CYLINDER, TRIANGLE)))
-    prim_idx = jnp.where(
-        i < ns, i,
-        jnp.where(i < ns + nb, i - ns,
-                  jnp.where(i < ns + nb + nc, i - ns - nb, 0)))
-    if scene.triangles.mat.shape[0] and scene.tri_bvh is not None:
-        slot = jnp.clip(i - (ns + nb + nc), 0,
-                        scene.tri_bvh.tri_index.shape[0] - 1)
-        tri = jnp.maximum(scene.tri_bvh.tri_index[slot], 0)
-        prim_idx = jnp.where(prim_type == TRIANGLE, tri, prim_idx)
-    return refine_hit(scene, ro, rd, t_min, prim_type, prim_idx, valid)
-
-
-def prefetch_hit_params(scene: Scene, ids):
-    """Hoist every id-dependent gather of the replay path OUT of the
-    bounce scan. Measured on v5e (round 4): a gather inside ``lax.scan``
-    lowers ~25x slower than the identical gather at top level, and
-    hit_from_ids does ~7 of them — they were the entire cost of the
-    replay forward. The winner ids for ALL bounces are known up front
-    (megakernel records), so one batched gather per table here replaces
-    B gathers inside the scan. ``ids``: (..., ) MegaMeta-encoded int32;
-    every returned leaf broadcasts over the same leading axes and stays
-    ATTACHED to the scene arrays (vertex/material gradients flow through
-    these gathers, transposed once instead of per bounce).
-    """
-    ns = scene.spheres.radius.shape[0]
-    nb = scene.boxes.mat.shape[0]
-    nc = scene.cylinders.radius.shape[0]
-    valid = ids >= 0
-    i = jnp.maximum(ids, 0)
-    prim_type = jnp.where(
-        i < ns, SPHERE,
-        jnp.where(i < ns + nb, BOX,
-                  jnp.where(i < ns + nb + nc, CYLINDER, TRIANGLE)))
-    prim_idx = jnp.where(
-        i < ns, i,
-        jnp.where(i < ns + nb, i - ns,
-                  jnp.where(i < ns + nb + nc, i - ns - nb, 0)))
-    hp = {"valid": valid, "prim_type": prim_type, "mat": jnp.zeros_like(i)}
-
-    def msel(type_id, m_i):
-        hp["mat"] = jnp.where(valid & (prim_type == type_id), m_i, hp["mat"])
-
-    if ns:
-        si = jnp.clip(prim_idx, 0, ns - 1)
-        hp["sph_c"] = scene.spheres.center[si]
-        hp["sph_r"] = scene.spheres.radius[si]
-        msel(SPHERE, scene.spheres.mat[si])
-    if nb:
-        bi = jnp.clip(prim_idx, 0, nb - 1)
-        hp["box_lo"] = scene.boxes.bmin[bi]
-        hp["box_hi"] = scene.boxes.bmax[bi]
-        msel(BOX, scene.boxes.mat[bi])
-    if nc:
-        ci = jnp.clip(prim_idx, 0, nc - 1)
-        hp["cyl_b"] = scene.cylinders.base[ci]
-        hp["cyl_a"] = scene.cylinders.axis[ci]
-        hp["cyl_r"] = scene.cylinders.radius[ci]
-        hp["cyl_rot"] = scene.cylinders.rot[ci]
-        msel(CYLINDER, scene.cylinders.mat[ci])
-    if scene.triangles.mat.shape[0] and scene.tri_bvh is not None:
-        slot = jnp.clip(i - (ns + nb + nc), 0,
-                        scene.tri_bvh.tri_index.shape[0] - 1)
-        ti = jnp.maximum(scene.tri_bvh.tri_index[slot], 0)
-        hp["tri_v0"] = scene.triangles.v0[ti]
-        hp["tri_v1"] = scene.triangles.v1[ti]
-        hp["tri_v2"] = scene.triangles.v2[ti]
-        msel(TRIANGLE, scene.triangles.mat[ti])
-    return hp
-
-
-def hit_from_params(scene: Scene, hp, ro, rd, t_min) -> Hit:
-    """Gather-free hit recompute from prefetched winner params (the
-    in-scan half of the prefetch_hit_params split). Pure per-ray math —
-    identical results to hit_from_ids."""
-    R = ro.shape[0]
-    t = jnp.full((R,), INF)
-    normal = jnp.zeros((R, 3))
-    inner = jnp.zeros((R,), bool)
-    valid = hp["valid"]
-    prim_type = hp["prim_type"]
-
-    def blend(type_id, t_i, n_i, inner_i):
-        nonlocal t, normal, inner
-        sel = valid & (prim_type == type_id)
-        t = jnp.where(sel, t_i, t)
-        normal = jnp.where(sel[..., None], n_i, normal)
-        inner = jnp.where(sel, inner_i, inner)
-
-    if "sph_c" in hp:
-        blend(SPHERE, *sphere_hit_one(hp["sph_c"], hp["sph_r"], ro, rd, t_min))
-    if "box_lo" in hp:
-        blend(BOX, *box_hit_one(hp["box_lo"], hp["box_hi"], ro, rd, t_min))
-    if "cyl_b" in hp:
-        blend(CYLINDER, *cylinder_hit_one(
-            hp["cyl_b"], hp["cyl_a"], hp["cyl_r"], hp["cyl_rot"],
-            ro, rd, t_min))
-    if "tri_v0" in hp:
-        blend(TRIANGLE, *triangle_hit_one(
-            hp["tri_v0"], hp["tri_v1"], hp["tri_v2"], ro, rd, t_min))
-
-    nlen = jnp.linalg.norm(normal, axis=-1, keepdims=True)
-    normal = normal / jnp.maximum(nlen, 1e-12)
-    return Hit(t=t, normal=normal, mat=hp["mat"], inner=inner & valid,
-               valid=valid)
 
 
 def refine_hit(scene: Scene, ro, rd, t_min, prim_type, prim_idx, valid) -> Hit:

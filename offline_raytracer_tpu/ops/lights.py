@@ -20,10 +20,10 @@ sampling by the balance heuristic. All sampling is per-ray keyed
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 import numpy as np
 
+from offline_raytracer_tpu.utils import pytree
 from offline_raytracer_tpu.utils.math import normalize
 
 PI = jnp.pi
@@ -31,7 +31,7 @@ PI = jnp.pi
 KIND_SPHERE, KIND_CYLINDER, KIND_MESH = 0, 1, 2
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class AreaLights:
     """SoA table of NEE-sampleable emissive shapes (L lights)."""
 
@@ -67,7 +67,7 @@ def empty_area_lights() -> AreaLights:
         em_v0=z3, em_v1=z3, em_v2=z3, em_cdf=zf)
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class LightSample:
     p: jnp.ndarray         # (R, 3) point on the light surface
     normal: jnp.ndarray    # (R, 3) light surface normal (outward)
@@ -120,9 +120,12 @@ def sample_lights(u, lights: AreaLights, emit_table) -> LightSample:
         jnp.stack([cphi, sphi, jnp.zeros_like(cphi)], -1),
         jnp.stack([jnp.zeros_like(cphi), jnp.zeros_like(cphi),
                    jnp.where(pick_top, 1.0, -1.0)], -1))
-    # world = rot^T @ local + p0, batched: (R,3,3)^T (R,3)
-    p_cyl = jnp.einsum("rji,rj->ri", rot, p_local) + p0
-    n_cyl = jnp.einsum("rji,rj->ri", rot, n_local)
+    # world = rot^T @ local + p0, batched: (R,3,3)^T (R,3). Written as an
+    # elementwise product + sum, not an einsum: a 3x3 contraction lowered
+    # as a dot may run in TF32 on tensor-core GPUs, which would move the
+    # sample point by ~1e-3 relative. This keeps full f32 on every backend.
+    p_cyl = jnp.sum(rot * p_local[..., :, None], -2) + p0
+    n_cyl = jnp.sum(rot * n_local[..., :, None], -2)
 
     # --- mesh: two-level pick — light idx is already chosen, then the
     # triangle comes from the globally monotone CDF (light k's slice spans

@@ -1,9 +1,9 @@
-"""BVH traversal: packet descent over the packed LBVH (jnp reference path).
+"""BVH traversal: packet descent over the packed LBVH.
 
 The reference walks one ray at a time through a pointer queue
-(raycast_bvh, ray.cpp:624-822). Neither pointer-chasing nor per-ray
-gather loops map to TPU, so the strategy here is **packet traversal**
-over the packed LBVH (ops/bvh.py):
+(raycast_bvh, ray.cpp:624-822). Here the strategy is **packet traversal**
+over the packed LBVH (ops/bvh.py), written in plain jnp/lax and compiled
+by XLA:
 
 - ONE scalar node stack is shared by the whole ray packet (the wavefront
   analog of the reference's per-tile queue);
@@ -19,14 +19,11 @@ over the packed LBVH (ops/bvh.py):
   under jit (impossible per-ray, where vmap turns cond into select-both).
 
 A node is descended if ANY ray in the packet wants it, so packets want
-coherent rays (camera tiles, low bounce depth). The Pallas megakernel
-(traverse_pallas.py) runs the identical algorithm on-chip with the BVH
-resident in VMEM.
+coherent rays (camera tiles, low bounce depth). The packet is the whole
+ray batch it is handed.
 """
 
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -157,8 +154,8 @@ def bvh_hit_ts(bvh: TriBVH, ro, rd, t_min, t_far=None, max_stack: int = 64,
 def coherence_order(bvh: TriBVH, ro, rd):
     """Sort permutation grouping rays by direction octant then position.
 
-    Packet traversal descends a node if ANY ray in a 1024-ray block wants
-    it, so incoherent blocks degenerate to brute force over the leaves.
+    Packet traversal descends a node if ANY ray in the packet wants it,
+    so incoherent packets degenerate to brute force over the leaves.
     Sorting bounce/shadow rays by (direction octant, 3-bit-per-axis Morton
     cell of the origin within the scene AABB) makes blocks spatially tight
     again — the wavefront analog of the tile coherence the reference gets
@@ -183,50 +180,21 @@ def coherence_order(bvh: TriBVH, ro, rd):
     return jnp.argsort((octant << 9) | morton)
 
 
-def _pick_tri_hit(bvh: TriBVH, cfg: RenderConfig):
-    """Traversal strategy dispatch (cfg.traversal):
-
-    - "cull": dense leaf cull + listed-leaf Pallas sweep (traverse_cull) —
-      no tree walk on device at all; wins when blocks are leaf-sparse.
-    - "packet": shared-stack packet tree walk in Pallas (traverse_pallas).
-    - "jnp": the XLA reference path (always used on CPU).
-    - "auto": cull when the tree qualifies, else packet, else jnp.
-    """
-    mode = cfg.traversal
-    on_accel = jax.default_backend() not in ("cpu",)
-    # "mega" reaching this dispatch means the scene failed the megakernel
-    # gate (render._mega_active) — degrade like "auto"
-    if cfg.use_pallas and on_accel and mode in ("auto", "mega", "cull"):
-        from offline_raytracer_tpu.ops import traverse_cull as tc
-
-        if tc.cull_ok(bvh) and tc.fits_vmem(bvh):
-            return tc.bvh_hit_ts_cull
-    # an explicit "cull" on an unqualified tree degrades to the packet
-    # kernel (the next-fastest on-chip path), not to the jnp walk
-    if cfg.use_pallas and on_accel and mode in ("auto", "mega", "packet", "cull"):
-        from offline_raytracer_tpu.ops import traverse_pallas as tp
-
-        if tp.fits_vmem(bvh):
-            return functools.partial(
-                tp.bvh_hit_ts_pallas, max_stack=cfg.max_stack_depth)
-    return functools.partial(bvh_hit_ts, max_stack=cfg.max_stack_depth)
-
-
-def _sorted_tri_hit(bvh, tri_hit, cfg, ro, rd, t_far=None, any_hit=False):
+def _sorted_tri_hit(bvh, cfg, ro, rd, t_far=None, any_hit=False):
     # traversal is SEARCH-ONLY: integer winners and detached bounds; the
-    # differentiable hit comes from refine_hit's recompute. The explicit
-    # stop_gradient also keeps jax.grad from trying to linearize the
-    # Pallas kernels (which have no VJP).
+    # differentiable hit comes from refine_hit's recompute
     ro = jax.lax.stop_gradient(ro)
     rd = jax.lax.stop_gradient(rd)
     t_far = None if t_far is None else jax.lax.stop_gradient(t_far)
     if not cfg.sort_rays:
-        t, slot = tri_hit(bvh, ro, rd, cfg.t_min, t_far, any_hit=any_hit)
+        t, slot = bvh_hit_ts(bvh, ro, rd, cfg.t_min, t_far,
+                             cfg.max_stack_depth, any_hit)
         return jax.lax.stop_gradient(t), slot
     order = coherence_order(bvh, ro, rd)
     inv = jnp.argsort(order)
     tf = None if t_far is None else t_far[order]
-    t, slot = tri_hit(bvh, ro[order], rd[order], cfg.t_min, tf, any_hit=any_hit)
+    t, slot = bvh_hit_ts(bvh, ro[order], rd[order], cfg.t_min, tf,
+                         cfg.max_stack_depth, any_hit)
     return jax.lax.stop_gradient(t[inv]), slot[inv]
 
 
@@ -237,7 +205,6 @@ def make_bvh_trace_fn(scene: Scene, cfg: RenderConfig):
     host-side, scene/build.py)."""
     bvh = scene.tri_bvh
     assert bvh is not None, "scene has no tri_bvh; build(with_bvh=True)"
-    tri_hit = _pick_tri_hit(bvh, cfg)
 
     def trace(ro, rd):
         R = ro.shape[0]
@@ -261,7 +228,7 @@ def make_bvh_trace_fn(scene: Scene, cfg: RenderConfig):
         if scene.cylinders.radius.shape[0]:
             consider(I.cylinder_ts(scene.cylinders, ro, rd, cfg.t_min), I.CYLINDER)
 
-        tt, slot = _sorted_tri_hit(bvh, tri_hit, cfg, ro, rd)
+        tt, slot = _sorted_tri_hit(bvh, cfg, ro, rd)
         tri_id = jnp.where(slot >= 0, bvh.tri_index[jnp.maximum(slot, 0)], -1)
         better = (tt < best_t) & (tri_id >= 0)
         best_t = jnp.where(better, tt, best_t)
@@ -283,7 +250,6 @@ def make_bvh_occlusion_fn(scene: Scene, cfg: RenderConfig):
     """
     bvh = scene.tri_bvh
     assert bvh is not None, "scene has no tri_bvh; build(with_bvh=True)"
-    tri_hit = _pick_tri_hit(bvh, cfg)
 
     def occluded(ro, rd, t_far):
         hit = jnp.zeros(ro.shape[:1], bool)
@@ -300,7 +266,7 @@ def make_bvh_occlusion_fn(scene: Scene, cfg: RenderConfig):
         # lanes already occluded by an analytic prim are dead for the
         # (expensive) triangle pass
         tf = jnp.where(hit, 0.0, t_far)
-        _, slot = _sorted_tri_hit(bvh, tri_hit, cfg, ro, rd, tf, any_hit=True)
+        _, slot = _sorted_tri_hit(bvh, cfg, ro, rd, tf, any_hit=True)
         valid_tri = (slot >= 0) & (bvh.tri_index[jnp.maximum(slot, 0)] >= 0)
         return hit | valid_tri
 

@@ -1,4 +1,4 @@
-"""Geometry-sharded rendering: ring-rotate ray blocks over ICI.
+"""Geometry-sharded rendering: ring-rotate ray blocks between devices.
 
 The sequence-parallel analog from SURVEY.md §5: when the BVH no longer
 fits replicated in per-chip HBM, shard the *triangles* (Morton-contiguous
@@ -219,7 +219,8 @@ def render_block_ring(
     """Render with rays AND geometry sharded over the mesh -> (P, 3).
 
     Per-chip BVH memory is 1/n_devices of the replicated path; each bounce
-    costs one full ring rotation over ICI. P must divide by the mesh size.
+    costs one full ring rotation over the interconnect. P must divide by
+    the mesh size.
     ``shards``: the prepare_ring_shards() result; pass it to amortize the
     shard build across calls (built on the fly if omitted).
     """

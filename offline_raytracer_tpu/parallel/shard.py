@@ -8,13 +8,13 @@ static partition of the ray space over a 1-D device mesh:
   BVH) is replicated; no collectives are needed — per-shard framebuffer
   regions are disjoint, the modern analog of disjoint tile rectangles;
 - backward (inverse rendering): scene-parameter gradients are psum'd
-  over ICI — the all-reduce the reference never needed because it never
+  over the device interconnect — the all-reduce the reference never needed because it never
   scaled past one process (SURVEY.md §5 "Distributed communication");
 - determinism: per-ray counter-based keys (utils/rng.py) make the image
   bitwise independent of device count — asserted by tests/test_parallel.py.
 
-Multi-host: call jax.distributed.initialize() before building the mesh;
-the same code paths then span hosts (ICI within a slice, DCN across).
+Multi-process: call init_multihost() before building the mesh; the same
+code paths then span every process's devices.
 """
 
 from __future__ import annotations
@@ -49,11 +49,10 @@ def init_multihost(
 
     Calls ``jax.distributed.initialize()`` — after this, ``jax.devices()``
     spans every host in the slice and the exact same ``make_mesh()`` /
-    ``shard_map`` code paths below run across hosts (collectives ride ICI
-    within a slice, DCN across slices). With no arguments, coordinator and
-    process identity are auto-detected from the TPU/cluster environment
-    (the standard path on Cloud TPU pods); pass them explicitly for manual
-    clusters. Returns this process's index.
+    ``shard_map`` code paths below run across processes. With no
+    arguments, coordinator and process identity come from a cluster
+    environment JAX recognizes (e.g. SLURM); elsewhere pass all three.
+    Returns this process's index.
 
     The reference has nothing to wire here — nothing in it crosses a
     process boundary (SURVEY.md §5 "Distributed communication backend").
@@ -151,7 +150,7 @@ def grad_step_sharded(
 
     param_getter(scene) -> pytree of optimizable leaves;
     param_setter(scene, params) -> scene. The L2 image loss is computed
-    per shard; leaf gradients are psum'd over ICI (the backward-path
+    per shard; leaf gradients are psum'd over the mesh (the backward-path
     collective of SURVEY.md §5). Returns (loss, grads).
     """
 

@@ -31,41 +31,9 @@ def _trace_builder(scene: Scene, cfg: RenderConfig):
     return make_brute_trace_fn(scene, cfg), None
 
 
-def _mega_active(scene: Scene, cfg: RenderConfig) -> bool:
-    """Route through the fused megakernel (ops/mega.py)?  Static checks
-    only; evaluated at trace time. The mega route is differentiable: its
-    VJP replays the kernel's hit records through the XLA integrator
-    (replay.py), so jax.grad works on the default config."""
-    if cfg.traversal not in ("auto", "mega") or not cfg.use_pallas:
-        return False
-    if not cfg.use_bvh:
-        return False
-    if jax.default_backend() == "cpu":
-        return False
-    from offline_raytracer_tpu.ops import mega
-    return mega.mega_ok(scene, cfg)
-
-
 def _paths_fn(scene: Scene, cfg: RenderConfig):
-    """Path-trace callable (ro, rd, keys, collect_stats) -> radiance[, stats]:
-    the fused megakernel when the scene qualifies, else the XLA wavefront."""
-    if _mega_active(scene, cfg):
-        from offline_raytracer_tpu.ops import mega
-        from offline_raytracer_tpu.replay import mega_paths_diff, replay_paths
-
-        def f(ro, rd, keys, collect_stats=False):
-            if collect_stats:  # stats are forward-only diagnostics
-                return mega.render_paths_mega(
-                    scene, cfg, ro, rd, keys, collect_stats=True)
-            if cfg.grad_mode == "replay-value":
-                # value from the XLA replay of the kernel's records: plain
-                # autodiff, so cotangents the caller doesn't use are DCE'd
-                # (the custom_vjp route computes all of them; see
-                # config.grad_mode). Same estimator on the same draws.
-                return replay_paths(scene, cfg, ro, rd, keys)
-            return mega_paths_diff(scene, cfg, ro, rd, keys)
-        return f
-
+    """Path-trace callable (ro, rd, keys, collect_stats) -> radiance[, stats]
+    through the XLA wavefront integrator."""
     trace_fn, occl_fn = _trace_builder(scene, cfg)
 
     def f(ro, rd, keys, collect_stats=False):
@@ -91,11 +59,9 @@ def render_block(scene: Scene, cfg: RenderConfig, pixel_ids, sample_lo: int, n_s
         radiance = paths(ro, rd, ps_keys)
         return accum + radiance, None
 
-    # Small chunks run UNROLLED: on TPU, gathers and big dynamic slices
-    # degrade badly inside lax.scan (r4 profiling) and the whole path
-    # tracer — including the megakernel host loop's compaction sorts —
-    # would otherwise sit inside the loop body. Large chunks keep the
-    # scan so compile size stays bounded.
+    # Small chunks run unrolled, so the path tracer does not sit inside
+    # an outer loop body; large chunks keep the scan so compile size stays
+    # bounded.
     if n_samples <= 4:
         accum = jnp.zeros((P, 3))
         for k in range(n_samples):
@@ -116,10 +82,9 @@ def render_block_jit(scene, cfg, pixel_ids, sample_lo, n_samples):
 def tile_pixel_ids(width: int, height: int, tile: int = 32) -> np.ndarray:
     """All pixel ids, permuted to tile-major order (32x32 tiles).
 
-    A 32x32 tile is exactly one megakernel block (8x128 lanes), so feeding
-    blocks in tile order keeps every block spatially tight — camera rays
-    share BVH leaves and bounce rays stay region-local. This is the
-    coherence the reference gets from its tile work queue
+    Feeding blocks in tile order keeps every block spatially tight —
+    camera rays share BVH leaves and bounce rays stay region-local. This is
+    the coherence the reference gets from its tile work queue
     (macos_main.mm:602-662), recovered as a one-time host-side permutation
     instead of the per-bounce device argsort of rounds 1-2.
     """

@@ -3,7 +3,8 @@
 Replaces the reference's array-of-structs World (ray.h:51-88: Material[],
 Sphere[], AAB[], Cylinder[], Mesh[] with per-shape mat_index) with flat SoA
 device arrays so every op is batched over the primitive axis. All pytrees
-are flax.struct dataclasses: frozen, jit/vmap/grad-transparent.
+are frozen dataclasses registered as pytrees (utils/pytree.py):
+jit/vmap/grad-transparent.
 
 Material semantics follow parser.cpp:1270-1309 (brdf token: diffuse rgb,
 specular rgb + int exponent, optional transmission rgb + ior) and
@@ -12,12 +13,13 @@ parser.cpp:1236-1248 (light token: emissive material).
 
 from __future__ import annotations
 
-import flax.struct
 import jax.numpy as jnp
 import numpy as np
 
+from offline_raytracer_tpu.utils import pytree
 
-@flax.struct.dataclass
+
+@pytree.dataclass
 class Materials:
     diffuse: jnp.ndarray       # (M, 3) Kd
     specular: jnp.ndarray      # (M, 3) Ks
@@ -29,21 +31,21 @@ class Materials:
     is_light: jnp.ndarray      # (M,)   bool
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Spheres:
     center: jnp.ndarray  # (N, 3)
     radius: jnp.ndarray  # (N,)
     mat: jnp.ndarray     # (N,) int32
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Boxes:
     bmin: jnp.ndarray  # (N, 3)
     bmax: jnp.ndarray  # (N, 3)
     mat: jnp.ndarray   # (N,) int32
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Cylinders:
     base: jnp.ndarray    # (N, 3)
     axis: jnp.ndarray    # (N, 3) non-unit: |axis| = height
@@ -52,7 +54,7 @@ class Cylinders:
     mat: jnp.ndarray     # (N,) int32
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Triangles:
     v0: jnp.ndarray   # (N, 3)
     v1: jnp.ndarray   # (N, 3)
@@ -65,7 +67,7 @@ class Triangles:
 # ever samples spheres, ray.cpp:554-595.)
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Camera:
     """Pinhole/thin-lens camera (ray.h:42-49, macos_main.mm:550-556).
 
@@ -80,7 +82,7 @@ class Camera:
     z_axis: jnp.ndarray  # (3,)
 
 
-@flax.struct.dataclass
+@pytree.dataclass
 class Scene:
     materials: Materials
     spheres: Spheres

@@ -11,8 +11,9 @@ progress is durable at two levels:
   counter-based (utils/rng.py), so the resumed image is bitwise the image
   an uninterrupted run would have produced.
 - **Inverse-rendering state** (`save_opt_state` / `load_opt_state`):
-  params + optimizer state + step via orbax (diff.py), so a gradient
-  descent run survives preemption.
+  params + optimizer state, flattened to their pytree leaves and written
+  atomically as one .npz per step (diff.py), so a gradient descent run
+  survives preemption.
 """
 
 from __future__ import annotations
@@ -42,22 +43,26 @@ def _meta_compatible(stored: dict, current: dict) -> bool:
     return all(stored[k] == current[k] for k in common)
 
 
-def save_accum(path: str, accum: np.ndarray, spp_done: int, cfg) -> None:
-    """Atomically write the accumulation state for (cfg, spp_done)."""
+def _atomic_savez(path: str, *args, **arrays) -> None:
+    """np.savez to ``path`` via a temp file + rename: never half-written."""
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".npz.tmp")
     os.close(fd)
     try:
         with open(tmp, "wb") as f:
-            np.savez(f, accum=np.asarray(accum, np.float32),
-                     spp_done=np.int64(spp_done),
-                     meta=np.frombuffer(
-                         json.dumps(_meta_of(cfg)).encode(), np.uint8))
+            np.savez(f, *args, **arrays)
         os.replace(tmp, path)
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def save_accum(path: str, accum: np.ndarray, spp_done: int, cfg) -> None:
+    """Atomically write the accumulation state for (cfg, spp_done)."""
+    _atomic_savez(path, accum=np.asarray(accum, np.float32),
+                  spp_done=np.int64(spp_done),
+                  meta=np.frombuffer(json.dumps(_meta_of(cfg)).encode(), np.uint8))
 
 
 def load_accum(path: str, cfg):
@@ -79,33 +84,42 @@ def load_accum(path: str, cfg):
         return None
 
 
-# ---------------------------------------------------------------- orbax
+# ------------------------------------------------ inverse-rendering state
 
 
-def opt_checkpointer():
-    import orbax.checkpoint as ocp
-
-    return ocp.StandardCheckpointer()
+def _opt_path(directory: str, step: int) -> str:
+    return os.path.join(os.path.abspath(directory), f"step_{step:08d}.npz")
 
 
-def save_opt_state(ckptr, directory: str, step: int, params, opt_state) -> None:
+def save_opt_state(directory: str, step: int, params, opt_state) -> None:
     """Save one inverse-rendering step (params + optimizer state)."""
-    path = os.path.join(os.path.abspath(directory), f"step_{step:08d}")
-    ckptr.save(path, {"params": params, "opt_state": opt_state}, force=True)
-    ckptr.wait_until_finished()
+    import jax
+
+    leaves = jax.tree_util.tree_leaves({"params": params, "opt_state": opt_state})
+    _atomic_savez(_opt_path(directory, step), *[np.asarray(x) for x in leaves])
 
 
 def latest_opt_step(directory: str) -> int | None:
     if not os.path.isdir(directory):
         return None
-    steps = [int(n.split("_")[1]) for n in os.listdir(directory)
-             if n.startswith("step_") and n.split("_")[1].isdigit()]
+    steps = [int(n[5:-4]) for n in os.listdir(directory)
+             if n.startswith("step_") and n.endswith(".npz") and n[5:-4].isdigit()]
     return max(steps) if steps else None
 
 
-def load_opt_state(ckptr, directory: str, step: int, params_like, opt_state_like):
-    """Restore (params, opt_state) saved at `step` (shapes from *_like)."""
-    path = os.path.join(os.path.abspath(directory), f"step_{step:08d}")
-    out = ckptr.restore(
-        path, {"params": params_like, "opt_state": opt_state_like})
+def load_opt_state(directory: str, step: int, params_like, opt_state_like):
+    """Restore (params, opt_state) saved at `step`; the pytree structure
+    comes from the *_like arguments and must match what was saved."""
+    import jax
+    import jax.numpy as jnp
+
+    treedef = jax.tree_util.tree_structure(
+        {"params": params_like, "opt_state": opt_state_like})
+    with np.load(_opt_path(directory, step)) as z:
+        leaves = [jnp.asarray(z[f"arr_{i}"]) for i in range(len(z.files))]
+    if len(leaves) != treedef.num_leaves:
+        raise ValueError(
+            f"checkpoint step {step} holds {len(leaves)} leaves, "
+            f"expected {treedef.num_leaves}")
+    out = jax.tree_util.tree_unflatten(treedef, leaves)
     return out["params"], out["opt_state"]

@@ -52,13 +52,12 @@ def batched_uniform(keys, n: int = 1):
 
 
 # ---------------------------------------------------------------------------
-# Directly-batched Threefry-2x32. The vmapped jax.random path above lowers
-# to per-key counter plumbing that costs ~4 ms per 64k-ray draw on a v5e —
-# ~30 ms of a 50 ms render step went to RNG (round-3 profiling). This is
-# the same Threefry-2x32 permutation (Salmon et al. 2011, the jax PRNG)
-# written as plain batched uint32 ops: ~50 VPU ops per 2 draws, microsecs.
-# Determinism contract unchanged: a draw is a pure function of
-# (per-ray key, tag, column) — never of batch slot or device count.
+# Directly-batched Threefry-2x32: the same permutation as the jax PRNG
+# (Salmon et al. 2011) written as plain batched uint32 ops, ~50 integer ops
+# per 2 draws, instead of the per-key counter plumbing the vmapped
+# jax.random path above lowers to. Determinism contract unchanged: a draw
+# is a pure function of (per-ray key, tag, column) — never of batch slot or
+# device count.
 # ---------------------------------------------------------------------------
 
 _ROT_A = (13, 15, 26, 6)
@@ -107,25 +106,19 @@ def key_words(ps_keys):
     return kd[..., 0], kd[..., 1]
 
 
-def tagged_uniform_planes(ps_keys, tag, n: int):
-    """(R,) keys + counter tag -> (n, R) uniform PLANES (row-major: no
-    lane-transposing stack — the fast form for the megakernel)."""
-    k0, k1 = key_words(ps_keys)
-    x0t = jnp.asarray(tag).astype(jnp.uint32) + jnp.zeros_like(k0)
-    cols = []
-    for j in range(0, n, 2):
-        a, b = threefry2x32(k0, k1, x0t, jnp.uint32(j) + jnp.zeros_like(k0))
-        cols += [a, b]
-    return jnp.stack([_bits_to_unit(c) for c in cols[:n]], 0)
-
-
 def tagged_uniforms(ps_keys, tag, n: int):
     """(R,) keys + counter tag -> (R, n) uniforms in one batched sweep.
 
     ``tag`` may be a python int or a traced scalar (the integrator's scan
     passes the bounce index).
     """
-    return tagged_uniform_planes(ps_keys, tag, n).T
+    k0, k1 = key_words(ps_keys)
+    x0t = jnp.asarray(tag).astype(jnp.uint32) + jnp.zeros_like(k0)
+    cols = []
+    for j in range(0, n, 2):
+        a, b = threefry2x32(k0, k1, x0t, jnp.uint32(j) + jnp.zeros_like(k0))
+        cols += [a, b]
+    return jnp.stack([_bits_to_unit(c) for c in cols[:n]], -1)
 
 
 # tag for camera draws, disjoint from bounce indices (tags 0..max_bounces)

@@ -97,53 +97,32 @@ def test_bvh_matches_bruteforce(n_tris):
     assert (tri_ids >= 0).all()
 
 
-def test_bvh_bunny_sanity(ref_data_dir):
-    from offline_raytracer_tpu.scene.ply import load_ply
+def test_bvh_bunny_sanity():
+    """A closed mesh at the bunny's scale (the generated blob, 20,480
+    faces): rays from inside toward a ring of surface points all hit."""
+    from offline_raytracer_tpu.models.scenes import icosphere
 
-    v, f = load_ply(f"{ref_data_dir}/bunny.ply")
+    u, f = icosphere(5)
+    v = (u * 0.6).astype(np.float32)
     v0, v1, v2 = v[f[:, 0]], v[f[:, 1]], v[f[:, 2]]
     bvh = build_tri_bvh(v0, v1, v2, np.zeros(len(f), np.int32))
     assert bvh.m_occ == -(-len(f) // LEAF)
 
-    # rays aimed at the bunny centroid from a ring must all hit
+    # rays from a ring around the center, outward: all hit at ~0.6 - 0.1
     center = v.mean(0)
     R = 64
     ang = np.linspace(0, 2 * np.pi, R, endpoint=False)
-    ro = np.stack([center[0] + 0.5 * np.cos(ang),
-                   center[1] + 0.5 * np.sin(ang),
+    ro = np.stack([center[0] + 0.1 * np.cos(ang),
+                   center[1] + 0.1 * np.sin(ang),
                    np.full(R, center[2])], 1).astype(np.float32)
-    rd = (center[None] - ro).astype(np.float32)
+    rd = (ro - center[None]).astype(np.float32)
     rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
 
     t, slot = jax.jit(lambda a, b: bvh_hit_ts(bvh, a, b, 1e-6))(
         jnp.asarray(ro), jnp.asarray(rd))
     t = np.asarray(t)
     assert np.isfinite(t).all(), f"{np.isfinite(t).sum()}/{R} rays hit"
-    assert (t < 0.6).all()
-
-
-def test_pallas_interpret_matches_jnp():
-    """Pallas kernel vs jnp packet traversal (interpret mode on CPU)."""
-    from offline_raytracer_tpu.ops.traverse_pallas import bvh_hit_ts_pallas
-
-    v0, v1, v2 = _random_tris(200, seed=9)
-    bvh = build_tri_bvh(v0, v1, v2, np.zeros(200, np.int32))
-    rs = np.random.RandomState(2)
-    R = 160  # deliberately not a block multiple: tests padding
-    ro = rs.uniform(-6, 6, (R, 3)).astype(np.float32)
-    rd = rs.randn(R, 3).astype(np.float32)
-    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
-    ro, rd = jnp.asarray(ro), jnp.asarray(rd)
-
-    t_ref, s_ref = jax.jit(lambda a, b: bvh_hit_ts(bvh, a, b, 1e-6))(ro, rd)
-    t_pal, s_pal = bvh_hit_ts_pallas(bvh, ro, rd, 1e-6, sub=8, interpret=True)
-    t_ref, t_pal = np.asarray(t_ref), np.asarray(t_pal)
-    hit_ref = np.isfinite(t_ref)
-    hit_pal = np.isfinite(t_pal)
-    np.testing.assert_array_equal(hit_ref, hit_pal)
-    np.testing.assert_allclose(t_pal[hit_pal], t_ref[hit_ref], rtol=1e-4)
-    np.testing.assert_array_equal(
-        np.asarray(s_ref)[hit_ref], np.asarray(s_pal)[hit_pal])
+    np.testing.assert_allclose(t, 0.5, atol=2e-3)
 
 
 def test_any_hit_occlusion_matches_closest():
@@ -172,33 +151,12 @@ def test_any_hit_occlusion_matches_closest():
     assert not occ_any[::7].any()
 
 
-def test_pallas_any_hit_interpret():
-    from offline_raytracer_tpu.ops.traverse_pallas import bvh_hit_ts_pallas
-
-    v0, v1, v2 = _random_tris(200, seed=11)
-    bvh = build_tri_bvh(v0, v1, v2, np.zeros(200, np.int32))
-    rs = np.random.RandomState(6)
-    R = 200
-    ro = rs.uniform(-6, 6, (R, 3)).astype(np.float32)
-    rd = rs.randn(R, 3).astype(np.float32)
-    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
-    t_far = rs.uniform(0.5, 12.0, (R,)).astype(np.float32)
-    ro, rd, t_far = jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(t_far)
-
-    t_ref, _ = jax.jit(lambda a, b: bvh_hit_ts(bvh, a, b, 1e-6))(ro, rd)
-    occ_ref = np.isfinite(np.asarray(t_ref)) & (np.asarray(t_ref) < np.asarray(t_far))
-    _, s_pal = bvh_hit_ts_pallas(bvh, ro, rd, 1e-6, t_far,
-                                 any_hit=True, interpret=True)
-    np.testing.assert_array_equal(np.asarray(s_pal) >= 0, occ_ref)
-
-
-def test_sorted_trace_matches_unsorted(ref_data_dir):
+def test_sorted_trace_matches_unsorted(blob_small):
     """Coherence sorting is a pure permutation: identical hits."""
     from offline_raytracer_tpu.config import RenderConfig
-    from offline_raytracer_tpu.models.scenes import bunny
     from offline_raytracer_tpu.ops.traverse import make_bvh_trace_fn
 
-    scene = bunny(32, 32)
+    scene = blob_small
     rs = np.random.RandomState(7)
     R = 512
     ro = rs.uniform(-2, 2, (R, 3)).astype(np.float32)
@@ -206,7 +164,7 @@ def test_sorted_trace_matches_unsorted(ref_data_dir):
     rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
     ro, rd = jnp.asarray(ro), jnp.asarray(rd)
 
-    base = dict(width=32, height=32, use_pallas=False)
+    base = dict(width=32, height=32)
     h_sorted = jax.jit(make_bvh_trace_fn(scene, RenderConfig(**base, sort_rays=True)))(ro, rd)
     h_plain = jax.jit(make_bvh_trace_fn(scene, RenderConfig(**base, sort_rays=False)))(ro, rd)
     np.testing.assert_array_equal(np.asarray(h_sorted.valid), np.asarray(h_plain.valid))
@@ -214,49 +172,44 @@ def test_sorted_trace_matches_unsorted(ref_data_dir):
                                np.asarray(h_plain.t)[np.asarray(h_plain.valid)],
                                rtol=1e-5)
 
-
-def test_cull_interpret_matches_jnp():
-    """Cull-and-sweep kernel vs jnp packet traversal (interpret mode)."""
-    from offline_raytracer_tpu.ops.traverse_cull import bvh_hit_ts_cull
-
-    v0, v1, v2 = _random_tris(200, seed=13)
-    bvh = build_tri_bvh(v0, v1, v2, np.zeros(200, np.int32))
-    rs = np.random.RandomState(3)
-    R = 160  # not a block multiple: tests padding
-    ro = rs.uniform(-6, 6, (R, 3)).astype(np.float32)
-    rd = rs.randn(R, 3).astype(np.float32)
-    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
-    ro, rd = jnp.asarray(ro), jnp.asarray(rd)
-
-    t_ref, s_ref = jax.jit(lambda a, b: bvh_hit_ts(bvh, a, b, 1e-6))(ro, rd)
-    t_c, s_c = bvh_hit_ts_cull(bvh, ro, rd, 1e-6, interpret=True)
-    t_ref, t_c = np.asarray(t_ref), np.asarray(t_c)
-    hit_ref = np.isfinite(t_ref)
-    hit_c = np.isfinite(t_c)
-    np.testing.assert_array_equal(hit_ref, hit_c)
-    np.testing.assert_allclose(t_c[hit_c], t_ref[hit_ref], rtol=1e-4)
-    np.testing.assert_array_equal(
-        np.asarray(s_ref)[hit_ref], np.asarray(s_c)[hit_c])
+    assert np.asarray(h_plain.valid).mean() > 0.2     # the mesh is in view
 
 
-def test_cull_any_hit_interpret():
-    from offline_raytracer_tpu.ops.traverse_cull import bvh_hit_ts_cull
+def _agree(a, b, n_flip_max):
+    """Two renders of the same paths: a winner flip at a triangle edge
+    (BVH coefficient test vs Moller-Trumbore) moves one pixel a lot, so
+    bound the number of diverging pixels and the mean."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-2)
+    assert (rel > 1e-2).any(-1).sum() <= n_flip_max
+    assert abs(a.mean() - b.mean()) <= 2e-3 * max(b.mean(), 1e-3)
 
-    v0, v1, v2 = _random_tris(200, seed=17)
-    bvh = build_tri_bvh(v0, v1, v2, np.zeros(200, np.int32))
-    rs = np.random.RandomState(8)
-    R = 200
-    ro = rs.uniform(-6, 6, (R, 3)).astype(np.float32)
-    rd = rs.randn(R, 3).astype(np.float32)
-    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
-    t_far = rs.uniform(0.5, 12.0, (R,)).astype(np.float32)
-    t_far[::5] = 0.0  # parked lanes must stay unreported
-    ro, rd, t_far = jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(t_far)
 
-    t_ref, _ = jax.jit(lambda a, b: bvh_hit_ts(bvh, a, b, 1e-6))(ro, rd)
-    occ_ref = (np.isfinite(np.asarray(t_ref))
-               & (np.asarray(t_ref) < np.asarray(t_far)))
-    _, s_c = bvh_hit_ts_cull(bvh, ro, rd, 1e-6, t_far,
-                             any_hit=True, interpret=True)
-    np.testing.assert_array_equal(np.asarray(s_c) >= 0, occ_ref)
-    assert not (np.asarray(s_c) >= 0)[::5].any()
+@pytest.mark.parametrize("scene_name,n_rays", [
+    ("shaped", 1280), ("blob", 1280), ("blob", 200)])
+def test_bvh_render_matches_bruteforce(scene_name, n_rays):
+    """The BVH route (packet walk + any-hit shadow rays) renders the same
+    paths as the brute-force sweep on the same threefry draws: the analytic
+    scene with every light kind and glass, the mesh, and a small ray batch
+    (fewer rays than one traversal tile of the coherence sort)."""
+    from offline_raytracer_tpu.config import RenderConfig
+    from offline_raytracer_tpu.models import scenes
+    from offline_raytracer_tpu.render import render_block_stats_jit
+
+    kw = {"subdiv": 3} if scene_name == "blob" else {}
+    scene = scenes.BY_NAME[scene_name](48, 48, **kw)
+    cfg = RenderConfig(width=48, height=48, spp=1, max_bounces=4,
+                       enable_dof=False)
+    ids = jnp.arange(n_rays, dtype=jnp.int32) % (48 * 48)
+    out = {}
+    for use_bvh in (True, False):
+        out[use_bvh] = render_block_stats_jit(
+            scene, cfg.replace(use_bvh=use_bvh), ids, 0, 2)
+    (img_b, alive_b), (img_f, alive_f) = out[True], out[False]
+    assert np.isfinite(np.asarray(img_b)).all()
+    assert float(np.asarray(img_b).mean()) > 0
+    _agree(img_b, img_f, n_flip_max=max(1, n_rays // 200))
+    # per-bounce alive counts are integers: equal up to the flipped paths
+    np.testing.assert_allclose(np.asarray(alive_b), np.asarray(alive_f),
+                               atol=max(1, n_rays // 200))
+

@@ -26,7 +26,7 @@ from offline_raytracer_tpu.config import RenderConfig
 from offline_raytracer_tpu.render import render_image_jnp
 
 CFG = RenderConfig(width=12, height=12, spp=16, max_bounces=3,
-                   enable_dof=False, use_bvh=False, use_pallas=False,
+                   enable_dof=False, use_bvh=False,
                    russian_roulette=1.0)
 
 # Geometry parameters get the direct-lighting config: per-sample FD equals
@@ -157,19 +157,20 @@ def test_mean_grad_sphere_center_multibounce(analytic_scene):
     assert p95 < 0.015 * scale, (p95, scale)
 
 
-def test_pixel_grad_mesh_vertices(ref_data_dir):
-    """configs[1] asset: d(image)/d(mesh vertex normal-translation) per
-    pixel — gradients flow into raw triangle vertex positions through the
-    differentiable hit refine. letterX.ply is stood upright facing the
-    camera so interior pixels move smoothly along the view axis."""
+def test_pixel_grad_mesh_vertices():
+    """d(image)/d(mesh vertex translation) per pixel — gradients flow into
+    raw triangle vertex positions through the differentiable hit refine.
+    The generated blob mesh (1,280 faces) stands in front of the camera and
+    moves along the view axis, so interior pixels change smoothly."""
+    from offline_raytracer_tpu.models.scenes import blob
     from offline_raytracer_tpu.scene.build import SceneBuilder
-    from offline_raytracer_tpu.scene.ply import load_ply
 
-    vx, fx = load_ply(f"{ref_data_dir}/letterX.ply")
-    v_up = vx[:, [0, 2, 1]] + np.array([0, 0, 1.5], np.float32)  # xz-plane
+    m = blob(12, 12, subdiv=3).triangles
+    tris = np.stack([np.asarray(m.v0), np.asarray(m.v1), np.asarray(m.v2)], 1)
+    v_up = tris.reshape(-1, 3) + np.array([0, 0, 0.9], np.float32)
     b = SceneBuilder()
     b.add_material(diffuse=(0.8, 0.2, 0.2))
-    b.add_triangles(v_up, fx)
+    b.add_triangles(v_up, np.arange(v_up.shape[0]).reshape(-1, 3))
     b.add_material(diffuse=(0.6, 0.6, 0.6))
     b.add_box_minmax((-20, -20, -0.4), (20, 20, -0.2))
     b.add_light_material((10.0, 10.0, 10.0))

@@ -18,7 +18,7 @@ from offline_raytracer_tpu.render import render_block_jit, render_image, render_
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
 
-BASE = dict(width=24, height=24, max_bounces=5, enable_dof=False, use_pallas=False)
+BASE = dict(width=24, height=24, max_bounces=5, enable_dof=False)
 
 
 def test_nee_matches_bsdf_only(analytic_scene):
@@ -74,10 +74,10 @@ def test_emissive_mesh_nee():
 
     img_nee = render_image(scene, RenderConfig(
         spp=96, width=16, height=16, max_bounces=4,
-        enable_dof=False, use_pallas=False))
+        enable_dof=False))
     img_bsdf = render_image(scene, RenderConfig(
         spp=3072, width=16, height=16, max_bounces=4,
-        enable_dof=False, enable_nee=False, use_pallas=False))
+        enable_dof=False, enable_nee=False))
     assert img_nee.mean() > 0.005
     assert abs(img_nee.mean() / img_bsdf.mean() - 1.0) < 0.12
 
@@ -107,8 +107,7 @@ def test_two_mesh_lights_nee():
     assert np.all(np.diff(np.asarray(scene.lights.em_cdf)) > 0), \
         "em_cdf must be globally monotone"
 
-    kw = dict(width=16, height=16, max_bounces=4, enable_dof=False,
-              use_pallas=False)
+    kw = dict(width=16, height=16, max_bounces=4, enable_dof=False)
     img_nee = render_image(scene, RenderConfig(spp=128, **kw))
     img_bsdf = render_image(scene, RenderConfig(spp=4096, enable_nee=False, **kw))
     assert img_nee.mean() > 0.005
@@ -134,8 +133,7 @@ def test_emissive_box_is_nee_sampled():
     assert scene.n_lights == 1
     assert float(scene.lights.area[0]) == pytest.approx(2 * 1 + 4 * 0.4, rel=1e-5)
 
-    kw = dict(width=16, height=16, max_bounces=4, enable_dof=False,
-              use_pallas=False)
+    kw = dict(width=16, height=16, max_bounces=4, enable_dof=False)
     img_nee = render_image(scene, RenderConfig(spp=96, **kw))
     img_bsdf = render_image(scene, RenderConfig(spp=3072, enable_nee=False, **kw))
     assert img_nee.mean() > 0.005
@@ -146,7 +144,7 @@ def test_gradients_match_finite_difference(analytic_scene):
     """d(mean image)/d(albedo) vs central finite differences —
     BASELINE.json gradient-correctness criterion on configs[0]."""
     cfg = RenderConfig(spp=24, width=12, height=12, max_bounces=3,
-                       enable_dof=False, use_pallas=False)
+                       enable_dof=False)
 
     def mean_img(kd_scale):
         sc = analytic_scene.replace(
@@ -170,7 +168,7 @@ def test_inverse_rendering_converges(analytic_scene):
         apply_material_params, material_params, optimize)
 
     cfg = RenderConfig(spp=8, width=12, height=12, max_bounces=3,
-                       enable_dof=False, use_pallas=False)
+                       enable_dof=False)
     ids = jnp.arange(12 * 12, dtype=jnp.int32)
     target = render_block_jit(analytic_scene, cfg, ids, 0, 8)
 

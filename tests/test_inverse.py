@@ -23,8 +23,7 @@ def test_inverse_testscene_recovers_materials(ref_data_dir):
     W, H = 32, 18
     scene, _ = load_scene(f"{ref_data_dir}/testscene.scn", W, H)
     cfg = RenderConfig(width=W, height=H, spp=2, max_bounces=4,
-                       enable_dof=False, traversal="jnp",
-                       ray_batch=W * H * 2)
+                       enable_dof=False, ray_batch=W * H * 2)
     ids = jnp.asarray(tile_pixel_ids(W, H))
     target = render_block(scene, cfg.replace(spp=8), ids, 1000, 8)
 
